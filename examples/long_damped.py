@@ -25,8 +25,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fwav_tpu import compute_snr, decompress_audio
-from fwav_tpu.models.stream import (
+from fwav import compute_snr, decompress_audio
+from fwav.models.stream import (
     compress_audio_streaming,
     domain_block_iter,
 )

@@ -21,9 +21,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fwav_tpu import compute_snr
-from fwav_tpu.io.wav import read_wav, write_wav
-from fwav_tpu.models.codec import process_file_compress, process_file_decompress
+from fwav import compute_snr
+from fwav.io.wav import read_wav, write_wav
+from fwav.models.codec import process_file_compress, process_file_decompress
 
 
 def stereo_fixture(seconds, sr, decorrelated):

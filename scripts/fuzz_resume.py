@@ -33,8 +33,8 @@ import numpy as np
 
 sys.path.insert(0, "/root/repo")
 
-from fwav_tpu.models.stream import compress_audio_streaming
-from fwav_tpu.parallel.mesh import make_mesh
+from fwav.models.stream import compress_audio_streaming
+from fwav.parallel.mesh import make_mesh
 from fuzz_stream_mesh import _random_signal  # same content classes
 
 

@@ -26,11 +26,11 @@ import numpy as np
 
 sys.path.insert(0, "/root/repo")
 
-from fwav_tpu.models.stream import compress_audio_streaming, domain_block_iter
-from fwav_tpu.ops.domains import bank_rows_host
-from fwav_tpu.ops.vad import voiced_detection
-from fwav_tpu.parallel.mesh import make_mesh
-from fwav_tpu import decompress_audio
+from fwav.models.stream import compress_audio_streaming, domain_block_iter
+from fwav.ops.domains import bank_rows_host
+from fwav.ops.vad import voiced_detection
+from fwav.parallel.mesh import make_mesh
+from fwav import decompress_audio
 
 
 def _random_signal(rng, n, sr):

@@ -4,9 +4,9 @@ Measures, per fixture: v1-pruned and compact-v2 sizes, the v2 ratio vs the
 16-bit WAV payload, round-trip SNR (default decode), and whether the v2
 entropy stage picked the whole-value coding for s/o (so_enc). CPU-pinned —
 container bytes are a pure host function of the records, and the encoder's
-selections on the CPU backend round-trip the same contracts as on TPU.
+selections on the CPU backend round-trip the same contracts as on the GPU.
 
-Run: python scripts/measure_ratio_battery.py   (from /root/repo, ~3 min)
+Run: python scripts/measure_ratio_battery.py   (from the repository root)
 """
 
 import sys
@@ -21,12 +21,12 @@ import numpy as np
 sys.path.insert(0, "/root/repo")
 
 from bench import make_signal  # noqa: E402
-from fwav_tpu import compress_audio_arrays, compute_snr, decompress_audio  # noqa: E402
-from fwav_tpu.io.compact import (  # noqa: E402
+from fwav import compress_audio_arrays, compute_snr, decompress_audio  # noqa: E402
+from fwav.io.compact import (  # noqa: E402
     _EXT, _EXT_OFFSET, FLAG_ENTROPY, compact_bytes, parse_compact_bytes,
 )
-from fwav_tpu.io.container import matches_to_struct, save_compressed  # noqa: E402
-from fwav_tpu.models.encode import prune_bank  # noqa: E402
+from fwav.io.container import matches_to_struct, save_compressed  # noqa: E402
+from fwav.models.encode import prune_bank  # noqa: E402
 
 
 def fixtures():

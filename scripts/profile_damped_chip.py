@@ -1,13 +1,11 @@
-"""Split the damped-streaming global pass into compile vs steady-state.
+"""Split the damped-streaming encode (global pass on) into compile vs
+steady state.
 
-chip_logs/damped.log measured the 100 s damped encode at 1.6x realtime
-with the global pass on — but that one number folds the per-process
-compile tax (shard cores at NEW 100 s bucket shapes + the global core)
-into the denominator. This script runs the identical encode TWICE in one
-process, collecting the per-phase table each time: run 1 pays every
-compile, run 2 is the steady-state device+transport cost the ≥100x
-target actually budgets (the compile tax is separately killed by
-FWAV_EXEC_CACHE / `fwavc warmup`, chip_logs/aot.log).
+One cold encode folds the per-process compile tax (shard cores at the
+file's bucket shapes + the global core) into its wall time. This script
+runs the identical encode TWICE in one process, collecting the per-phase
+table each time: run 1 pays every compile, run 2 is the steady-state
+device + transfer cost.
 
 Usage: python scripts/profile_damped_chip.py [--seconds 100] [--reps 2]
 """
@@ -34,12 +32,12 @@ def main():
     import numpy as np
 
     from bench import make_signal
-    from fwav_tpu import compute_snr, decompress_audio
-    from fwav_tpu.models.stream import (
+    from fwav import compute_snr, decompress_audio
+    from fwav.models.stream import (
         compress_audio_streaming,
         domain_block_iter,
     )
-    from fwav_tpu.utils.trace import collect_phases
+    from fwav.utils.trace import collect_phases
 
     sr = 44100
     sig = make_signal(args.seconds, sr)
@@ -62,8 +60,11 @@ def main():
         last = (rec, n_ranges, rs, tile, step, olen)
     rec, n_ranges, rs, tile, step, olen = last
     bank = np.concatenate(list(domain_block_iter(sig, tile, rs, step)))
+    from fwav.config import DAMPED_DECODE_DAMPING
+
     out = decompress_audio(
-        rec, bank, n_ranges, rs, original_len=olen, s_damping=0.25
+        rec, bank, n_ranges, rs, original_len=olen,
+        s_damping=DAMPED_DECODE_DAMPING,
     )
     print(json.dumps({"snr_db": round(float(compute_snr(sig, out)), 2)}),
           flush=True)

@@ -27,7 +27,7 @@ def main():
     import jax.numpy as jnp
 
     from bench import make_signal
-    from fwav_tpu.ops.domains import box_sums, build_bank_jax
+    from fwav.ops.domains import box_sums, build_bank_jax
 
     sig = make_signal(10.0, 44100)
     n = len(sig)
@@ -92,14 +92,14 @@ def main():
     print(f"bank slice (N,D): {(mintime(lambda: sync(f_slice_t(rd, n_domains)))-LAT)*1e3:.1f} ms")
 
     # VAD: current gather-framed vs reshape-framed
-    from fwav_tpu.ops.vad import voiced_mask_jax
+    from fwav.ops.vad import voiced_mask_jax
 
     f_vad_old = jax.jit(partial(voiced_mask_jax, frame_size=8))
     m0 = f_vad_old(rd, n, energy_threshold=1e-4)
     sync(m0)
     print(f"vad gather-framed: {(mintime(lambda: sync(f_vad_old(rd, n, energy_threshold=1e-4)))-LAT)*1e3:.1f} ms")
 
-    from fwav_tpu.ops.vad import hysteresis_jax
+    from fwav.ops.vad import hysteresis_jax
 
     @partial(jax.jit, static_argnames=())
     def f_vad_new(x, ns):

@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from fwav_tpu.cli import main
-from fwav_tpu.io.wav import read_wav_mono, write_wav
-from fwav_tpu.utils.metrics import compute_snr
+from fwav.cli import main
+from fwav.io.wav import read_wav_mono, write_wav
+from fwav.utils.metrics import compute_snr
 
 
 @pytest.fixture
@@ -150,7 +150,7 @@ def test_cli_batch_forwards_search_and_info_is_header_only(tmp_path, wav_dir, ca
     with open(trunc, "r+b") as f:
         f.truncate(66 + 10)  # destroy most of the bank
     # header still parses even though the payload is gone
-    from fwav_tpu.io.container import read_header
+    from fwav.io.container import read_header
 
     hdr = read_header(trunc)
     assert hdr[6] == info["n_ranges"]
@@ -160,7 +160,7 @@ def test_cli_default_prunes_bank(tmp_path, wav_dir):
     """The default CLI round trip produces the PRUNED container (VERDICT r1
     item 5): far fewer stored domains than the full sliding-window bank,
     identical reconstruction, and --full-bank restores reference behavior."""
-    from fwav_tpu.io.container import read_header
+    from fwav.io.container import read_header
 
     d, sig, sr = wav_dir
     pruned = tmp_path / "p.fwav"
@@ -185,7 +185,7 @@ def test_cli_default_prunes_bank(tmp_path, wav_dir):
 def test_cli_exit_codes(tmp_path):
     # 0 on success, 1 when a file fails — scripts/CI depend on it (the
     # reference always exits 0)
-    from fwav_tpu.cli import main as cli_main
+    from fwav.cli import main as cli_main
 
     assert cli_main(["compress", str(tmp_path / "missing.wav"),
                      str(tmp_path / "o.fwav")]) == 1
@@ -198,8 +198,8 @@ def test_cli_info_verify_reports_failed_checksum(tmp_path, capsys):
 
     import numpy as np
 
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.container import MATCH_DTYPE, save_compressed
+    from fwav.cli import main as cli_main
+    from fwav.io.container import MATCH_DTYPE, save_compressed
 
     rec = np.zeros(8, MATCH_DTYPE)
     rec["idx"] = np.arange(8) % 2
@@ -225,9 +225,9 @@ def test_cli_info_verify_reports_corrupt_compact_payload(tmp_path, capsys):
 
     import numpy as np
 
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.compact import save_compressed_compact
-    from fwav_tpu.io.container import MATCH_DTYPE
+    from fwav.cli import main as cli_main
+    from fwav.io.compact import save_compressed_compact
+    from fwav.io.container import MATCH_DTYPE
 
     rec = np.zeros(8, MATCH_DTYPE)
     rec["idx"] = np.arange(8) % 2
@@ -246,7 +246,7 @@ def test_cli_info_verify_reports_corrupt_compact_payload(tmp_path, capsys):
 def test_cli_workers_and_tp_validation(tmp_path):
     import pytest
 
-    from fwav_tpu.cli import main as cli_main
+    from fwav.cli import main as cli_main
 
     with pytest.raises(SystemExit):
         cli_main(["compress", str(tmp_path), "--batch", "--workers", "0"])
@@ -259,8 +259,8 @@ def test_cli_snr_subcommand(tmp_path, capsys):
 
     import numpy as np
 
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.wav import write_wav
+    from fwav.cli import main as cli_main
+    from fwav.io.wav import write_wav
 
     t = np.arange(8000) / 8000
     a = np.round(8000 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
@@ -280,9 +280,9 @@ def test_cli_resume_dir_reaches_streaming(tmp_path, monkeypatch):
     # them to produce a byte-identical file
     import numpy as np
 
-    import fwav_tpu.models.codec as codec
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.wav import write_wav
+    import fwav.models.codec as codec
+    from fwav.cli import main as cli_main
+    from fwav.io.wav import write_wav
 
     monkeypatch.setattr(codec, "STREAMING_THRESHOLD", 8000)
     rng = np.random.default_rng(21)
@@ -307,32 +307,22 @@ def test_cli_resume_dir_reaches_streaming(tmp_path, monkeypatch):
     assert rc == 0 and out.read_bytes() == first
 
 
-def test_bench_spread_reporting():
-    """bench._with_spread folds per-process samples into the authoritative
-    line: value = best process, plus worst/median/process_values (VERDICT
-    r2 item 1 — publish the spread, not just the best)."""
+def test_bench_refuses_non_gpu_backend():
+    """bench.py reports device numbers only: on any backend but the GPU it
+    exits with a message instead of printing a CPU measurement."""
     import sys
-    sys.path.insert(0, "/root/repo")
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import bench
 
-    rs = [{"metric": "m", "value": v, "unit": "x"} for v in (128.0, 96.5, 150.2)]
-    out = bench._with_spread(rs)
-    assert out["value"] == 150.2
-    assert out["worst"] == 96.5
-    assert out["median"] == 128.0
-    assert out["process_values"] == [96.5, 128.0, 150.2]
-    assert out["n_processes"] == 3
-    one = bench._with_spread(rs[:1])
-    assert one["value"] == one["worst"] == one["median"] == 128.0
-    two = bench._with_spread(rs[:2])
-    assert two["value"] == 128.0 and two["worst"] == 96.5
-    assert two["median"] == round((96.5 + 128.0) / 2, 2)
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        bench.measure()
 
 
 def test_cli_info_verify_header_corruption_clean_verdict(tmp_path, capsys):
     """Header-level corruption (bad magic) must produce a clean JSON error
     report with exit code 1, not a traceback (round-3 review)."""
-    from fwav_tpu.cli import main as cli_main
+    from fwav.cli import main as cli_main
 
     p = tmp_path / "junk.fwav"
     p.write_bytes(b"NOPE" + b"\x00" * 80)
@@ -346,8 +336,8 @@ def test_decompress_devices_ignored_at_zero_damping(tmp_path, wav_dir,
     """--devices N with the default damping=0 must not even build a mesh
     (the closed-form decode ignores it) — so it stays harmless on hosts
     with fewer devices (round-3 review)."""
-    import fwav_tpu.parallel.mesh as pm
-    from fwav_tpu.cli import main as cli_main
+    import fwav.parallel.mesh as pm
+    from fwav.cli import main as cli_main
 
     d, sig, sr = wav_dir
     fwav = tmp_path / "a.fwav"
@@ -369,8 +359,8 @@ def test_cli_warmup_populates_exec_cache(tmp_path, monkeypatch):
     persists it; a subsequent same-bucket compress must REUSE it (hit) —
     integral warmup samples must land on the same int16-transport program
     real WAVs use. The cross-process half lives in test_exec_cache.py."""
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.utils import aot_cache
+    from fwav.cli import main as cli_main
+    from fwav.utils import aot_cache
 
     cache = tmp_path / "wc"
     # the --exec-cache flag writes os.environ; registering the var with
@@ -386,13 +376,13 @@ def test_cli_warmup_populates_exec_cache(tmp_path, monkeypatch):
     # a tone WAV of the same duration buckets to the same program: the
     # compress must hit (fresh wrapper stands in for a fresh process via
     # the lru_cache clear)
-    from fwav_tpu.models import encode as enc
+    from fwav.models import encode as enc
 
     enc._encode_core.cache_clear()
     sr = 8000
     t = np.linspace(0, 0.12, int(sr * 0.12), endpoint=False)
     sig = (0.5 * (2**15 - 1) * np.sin(2 * np.pi * 440.0 * t)).astype(np.int16)
-    from fwav_tpu.io.wav import write_wav
+    from fwav.io.wav import write_wav
 
     wav = tmp_path / "w.wav"
     write_wav(str(wav), sig, sr, 2)

@@ -12,18 +12,18 @@ version check cleanly).
 import numpy as np
 import pytest
 
-from fwav_tpu import compute_snr, decompress_audio, load_compressed_arrays
-from fwav_tpu.io.compact import (
+from fwav import compute_snr, decompress_audio, load_compressed_arrays
+from fwav.io.compact import (
     load_compressed_compact,
     save_compressed_compact,
 )
-from fwav_tpu.io.container import (
+from fwav.io.container import (
     MATCH_DTYPE,
     read_matches,
     read_version,
     save_compressed,
 )
-from fwav_tpu.models.encode import compress_audio_arrays, prune_bank
+from fwav.models.encode import compress_audio_arrays, prune_bank
 
 
 def _assert_o_fixed_point(got, want):
@@ -74,7 +74,7 @@ def test_round_trip_fields(_encoded):
     # parameter contract (round 4, distortion-bounded quantization): the
     # EXTRA noise beyond the fp16/int16 baseline stays under _QUANT_GAMMA
     # of the encoder's residual energy, per stream (io/compact.py)
-    from fwav_tpu.io.compact import _QUANT_GAMMA, _o_exp_for
+    from fwav.io.compact import _QUANT_GAMMA, _o_exp_for
 
     err = rec["err"][live].astype(np.float64)
     anchor = float(np.dot(err, err))
@@ -139,7 +139,7 @@ def test_checksum_and_truncation(_encoded, tmp_path):
     bad.write_bytes(bytes(raw))
     with pytest.raises(ValueError, match="Checksum mismatch"):
         load_compressed_compact(bad)
-    from fwav_tpu.io.compact import _EXT_OFFSET, FLAG_DEFLATE
+    from fwav.io.compact import _EXT_OFFSET, FLAG_DEFLATE
 
     if raw[_EXT_OFFSET + 3] & FLAG_DEFLATE:
         # SHA opt-out honored, but the zlib stream's own adler32 still
@@ -256,7 +256,7 @@ def test_fuzz_round_trip(tmp_path, seed):
 
 
 def _flags_of(path):
-    from fwav_tpu.io.compact import _EXT_OFFSET
+    from fwav.io.compact import _EXT_OFFSET
 
     return path.read_bytes()[_EXT_OFFSET + 3]
 
@@ -265,7 +265,7 @@ def test_idx_delta_variant_selected_and_exact(tmp_path):
     # smoothly drifting domain indices: zigzag first-differences are tiny
     # constants, so the writer must pick FLAG_IDX_DELTA — and the stream
     # must still round-trip bit-exactly at idx_bits+1 packing
-    from fwav_tpu.io.compact import FLAG_IDX_DELTA
+    from fwav.io.compact import FLAG_IDX_DELTA
 
     n_ranges, n_dom = 4096, 5000
     rec = np.zeros(n_ranges, MATCH_DTYPE)
@@ -283,7 +283,7 @@ def test_idx_delta_variant_selected_and_exact(tmp_path):
 def test_raw_fallback_branch(tmp_path, monkeypatch):
     # if deflate ever loses (incompressible content), the writer must store
     # the raw stream layout (flags=0) and the loader must read it back
-    import fwav_tpu.io.compact as compact
+    import fwav.io.compact as compact
 
     real = compact.zlib.compress
     monkeypatch.setattr(
@@ -299,7 +299,7 @@ def test_raw_fallback_branch(tmp_path, monkeypatch):
     p = tmp_path / "raw.fwav"
     save_compressed_compact(p, rec, bank, N, sr, 2, tile, step, thr, olen)
     monkeypatch.undo()
-    from fwav_tpu.io.compact import FLAG_DEFLATE, FLAG_O_INT16
+    from fwav.io.compact import FLAG_DEFLATE, FLAG_O_INT16
 
     assert _flags_of(p) == FLAG_O_INT16  # raw layout, no deflate bits
     rec2, bank2, *_ = load_compressed_compact(p)
@@ -346,9 +346,9 @@ def test_all_silent_round_trip(tmp_path):
 
 def test_streaming_compact_file_level(tmp_path, monkeypatch):
     # long-file branch: streaming encode -> pruned rows -> compact container
-    import fwav_tpu.models.codec as codec
-    from fwav_tpu.io.wav import read_wav_mono, write_wav
-    from fwav_tpu.models.codec import (
+    import fwav.models.codec as codec
+    from fwav.io.wav import read_wav_mono, write_wav
+    from fwav.models.codec import (
         process_file_compress,
         process_file_decompress,
     )
@@ -371,8 +371,8 @@ def test_streaming_compact_file_level(tmp_path, monkeypatch):
 
 
 def test_cli_compact_round_trip(tmp_path):
-    from fwav_tpu.cli import main
-    from fwav_tpu.io.wav import read_wav_mono, write_wav
+    from fwav.cli import main
+    from fwav.io.wav import read_wav_mono, write_wav
 
     sig, sr = _sig(seconds=0.6, seed=4)
     wav = tmp_path / "in.wav"
@@ -390,7 +390,7 @@ def test_cli_compact_round_trip(tmp_path):
 
 
 def test_o_saturation_edge_and_nonfinite_rejection(tmp_path):
-    from fwav_tpu.io.compact import _o_exp_for
+    from fwav.io.compact import _o_exp_for
 
     # a peak whose scaled value rounds to the window edge 32768 saturates
     # to 32767 at exactly 1 ulp cost on that sample
@@ -425,7 +425,7 @@ def test_legacy_fp16_o_files_still_decode(tmp_path):
     import hashlib
     import struct
 
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET, FLAG_O_INT16
+    from fwav.io.compact import _EXT, _EXT_OFFSET, FLAG_O_INT16
 
     rec = np.zeros(4, MATCH_DTYPE)
     rec["idx"] = np.arange(4)
@@ -444,7 +444,7 @@ def test_legacy_fp16_o_files_still_decode(tmp_path):
     legacy_exp = 0
     o16 = rec["o"].astype(np.float16).tobytes()
     assert flags & 1 == 0 or True  # writer may or may not deflate; rebuild raw
-    from fwav_tpu.io.compact import _pack_bits, _pack_mask
+    from fwav.io.compact import _pack_bits, _pack_mask
 
     live = rec["idx"] >= 0
     raw = (
@@ -471,8 +471,8 @@ def test_entropy_layout_selected_and_smaller(_encoded, tmp_path):
     """Real encoder output picks the round-4 FLAG_ENTROPY layout and beats
     the legacy (deflate) encoding; loaders keep routing by version."""
     sig, sr, rec, bank, (n_ranges, N, tile, step, thr, olen), p1, p2 = _encoded
-    from fwav_tpu.io.compact import FLAG_ENTROPY, FLAG_O_INT16
-    import fwav_tpu.io.compact as compact
+    from fwav.io.compact import FLAG_ENTROPY, FLAG_O_INT16
+    import fwav.io.compact as compact
 
     assert _flags_of(p2) == FLAG_ENTROPY | FLAG_O_INT16
     # the legacy encoding of the same inputs, for the size comparison
@@ -509,7 +509,7 @@ def test_entropy_quantization_cost_damped_profile(tmp_path):
 def test_entropy_unknown_flag_combo_rejected(_encoded, tmp_path):
     # ENTROPY combined with the legacy deflate bits is not a defined layout
     *_, p2 = _encoded
-    from fwav_tpu.io.compact import _EXT_OFFSET, FLAG_DEFLATE
+    from fwav.io.compact import _EXT_OFFSET, FLAG_DEFLATE
 
     raw = bytearray(p2.read_bytes())
     assert raw[_EXT_OFFSET + 3] & 8  # FLAG_ENTROPY set on this fixture
@@ -524,7 +524,7 @@ def test_entropy_corrupt_stream_rejected(_encoded, tmp_path):
     # with the SHA pass skipped, corrupt section lengths / zlib section /
     # idx stream must still raise the format ValueError, never garbage out
     *_, p2 = _encoded
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET
+    from fwav.io.compact import _EXT, _EXT_OFFSET
 
     raw = bytearray(p2.read_bytes())
     ext2_off = _EXT_OFFSET + _EXT.size
@@ -549,7 +549,7 @@ def test_whole_value_stream_round_trip(tmp_path):
     """A low-alphabet s stream selects so_enc bit0 (whole-value rANS) and
     round-trips exactly; the synthetic record's s values repeat heavily so
     the whole-value stream must beat the byte planes."""
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET, _EXT2, compact_bytes, parse_compact_bytes
+    from fwav.io.compact import _EXT, _EXT_OFFSET, _EXT2, compact_bytes, parse_compact_bytes
 
     rng = np.random.default_rng(7)
     n = 4096
@@ -576,9 +576,9 @@ def test_whole_value_stream_round_trip(tmp_path):
 def test_whole_value_corrupt_alphabet_rejected(tmp_path):
     """Unknown so_enc bits and out-of-range alphabet sizes must raise the
     format ValueError, never decode garbage."""
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET, compact_bytes, parse_compact_bytes
+    from fwav.io.compact import _EXT, _EXT_OFFSET, compact_bytes, parse_compact_bytes
 
-    from fwav_tpu.io.compact import FLAG_ENTROPY
+    from fwav.io.compact import FLAG_ENTROPY
 
     rng = np.random.default_rng(8)
     n = 4096
@@ -607,7 +607,7 @@ def test_whole_value_corrupt_alphabet_rejected(tmp_path):
 def test_whole_value_o_stream_round_trip():
     """so_enc bit1 (whole-value o coding) engages on repeated offsets and
     round-trips exactly."""
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET, FLAG_ENTROPY, compact_bytes, parse_compact_bytes
+    from fwav.io.compact import _EXT, _EXT_OFFSET, FLAG_ENTROPY, compact_bytes, parse_compact_bytes
 
     rng = np.random.default_rng(11)
     n = 4096
@@ -634,8 +634,8 @@ def test_cli_info_reports_v2_layout(_encoded, tmp_path, capsys):
     (which keep-smallest encoding won + the entropy stage's choices)."""
     import json
 
-    from fwav_tpu.cli import main
-    from fwav_tpu.io.compact import describe_layout
+    from fwav.cli import main
+    from fwav.io.compact import describe_layout
 
     *_, p2 = _encoded
     assert main(["info", str(p2)]) == 0
@@ -675,8 +675,8 @@ def test_rank_split_idx_selected_and_exact():
     """A wide skewed idx alphabet (here ~9.5k uniques > the 2^12 dense cap)
     must select idx_enc=2, shrink the file vs the packed fallback, and
     round-trip every record exactly."""
-    from fwav_tpu.io import rans
-    from fwav_tpu.io.compact import (
+    from fwav.io import rans
+    from fwav.io.compact import (
         _EXT, _EXT_OFFSET, compact_bytes, describe_layout, parse_compact_bytes,
     )
 
@@ -700,7 +700,7 @@ def test_rank_split_single_unique_row():
     """> 2^16 domains with ONE referenced row: the rank-split layout stores
     no streams and no tables (both alphabets are 1), beating 17-bit packing
     outright, and decodes deterministically."""
-    from fwav_tpu.io.compact import (
+    from fwav.io.compact import (
         _EXT, _EXT_OFFSET, compact_bytes, parse_compact_bytes,
     )
 
@@ -723,7 +723,7 @@ def test_rank_split_hi_stream_mechanism(monkeypatch):
     shrinking the split to 2^8 for both writer and parser — the production
     16-bit split only engages it past 65536 uniques (hour-scale files).
     Validates the two-stream reassembly and the present-tables layout."""
-    from fwav_tpu.io import compact as C
+    from fwav.io import compact as C
 
     monkeypatch.setattr(C, "_IDX_SPLIT_BITS", 8)
     rec, bank = _wide_idx_rec(seed=21)
@@ -741,7 +741,7 @@ def test_rank_split_corrupt_fields_rejected():
     """Structural idx_enc=2 violations must raise the format ValueError:
     stray idx fields on other encodings, zero/oversized alphabets, and
     stream lengths inconsistent with the alphabet-1 rules."""
-    from fwav_tpu.io.compact import (
+    from fwav.io.compact import (
         _EXT, _EXT_OFFSET, compact_bytes, parse_compact_bytes,
     )
 
@@ -775,7 +775,7 @@ def test_ext2_tail_only_on_rank_split():
     (idx_enc 0/1) keep their byte layout and must keep parsing."""
     import zlib
 
-    from fwav_tpu.io.compact import (
+    from fwav.io.compact import (
         _EXT, _EXT2, _EXT2_RS, _EXT_OFFSET, FLAG_ENTROPY, compact_bytes,
         parse_compact_bytes,
     )

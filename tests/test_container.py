@@ -7,7 +7,7 @@ import struct
 import numpy as np
 import pytest
 
-from fwav_tpu.io.container import (
+from fwav.io.container import (
     MATCH_DTYPE,
     load_compressed,
     load_compressed_arrays,

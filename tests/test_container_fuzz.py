@@ -12,8 +12,8 @@ field corruption. MemoryError is tolerated only for size-field corruption
 import numpy as np
 import pytest
 
-from fwav_tpu.io.compact import load_compressed_compact, save_compressed_compact
-from fwav_tpu.io.container import MATCH_DTYPE, load_compressed_arrays, save_compressed
+from fwav.io.compact import load_compressed_compact, save_compressed_compact
+from fwav.io.container import MATCH_DTYPE, load_compressed_arrays, save_compressed
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def _files(tmp_path_factory):
     save_compressed_compact(p2, rec, bank, N, 16000, 2, 1024, 1, 1e-4, n_ranges * N)
     # a third corpus whose s stream selects the whole-value rANS coding
     # (so_enc bit0): heavy s repetition at a size where FLAG_ENTROPY wins
-    from fwav_tpu.io.compact import _EXT, _EXT_OFFSET, FLAG_ENTROPY
+    from fwav.io.compact import _EXT, _EXT_OFFSET, FLAG_ENTROPY
 
     m = 4096
     rec3 = np.zeros(m, MATCH_DTYPE)
@@ -81,7 +81,7 @@ def _attempt(loader, path, blob, tmp, tag):
 def _force_python_loader(request, monkeypatch):
     # the v1 loader prefers the native C++ parser; fuzz BOTH paths
     if request.param:
-        from fwav_tpu.io import native
+        from fwav.io import native
 
         monkeypatch.setattr(native, "read", lambda *a, **k: None)
     return request.param

@@ -6,7 +6,7 @@ piecewise-constant bound at identical rate and unchanged container."""
 import numpy as np
 import pytest
 
-from fwav_tpu import compress_audio_arrays, compute_snr, decompress_audio
+from fwav import compress_audio_arrays, compute_snr, decompress_audio
 
 
 def _fixture(kind):
@@ -50,8 +50,8 @@ def test_damped_gain_matches_bruteforce_oracle():
     g = num^2/denom if |s*|<=c else 2c|num| - c^2 denom (f64 oracle)."""
     import jax.numpy as jnp
 
-    from fwav_tpu.ops.affine import affine_stats
-    from fwav_tpu.ops.search import exact_search_block
+    from fwav.ops.affine import affine_stats
+    from fwav.ops.search import exact_search_block
 
     rng = np.random.default_rng(3)
     M, D, N, c = 64, 512, 4, 2.0
@@ -137,8 +137,8 @@ def test_cli_profile_damped(tmp_path):
     """compress --profile damped + decompress --damping realizes the
     quality win end to end through the CLI; default CLI behavior is
     untouched (plain compress == --profile default)."""
-    from fwav_tpu.cli import main
-    from fwav_tpu.io.wav import read_wav_mono, write_wav
+    from fwav.cli import main
+    from fwav.io.wav import read_wav_mono, write_wav
 
     sig, sr = _fixture("speechlike")
     wav = tmp_path / "in.wav"
@@ -171,11 +171,11 @@ def test_damped_profile_survives_compact_container(tmp_path):
     """The damped decode consumes the STORED s (fp16 in compact v2), so the
     compact container must not meaningfully dent the profile's quality
     (measured -0.007 dB on this fixture)."""
-    from fwav_tpu.io.compact import (
+    from fwav.io.compact import (
         load_compressed_compact,
         save_compressed_compact,
     )
-    from fwav_tpu.models.encode import prune_bank
+    from fwav.models.encode import prune_bank
 
     sig, sr = _fixture("speechlike")
     rec, dom, nr, rs, tile, step, thr, olen = compress_audio_arrays(

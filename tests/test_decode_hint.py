@@ -14,21 +14,21 @@ import json
 import numpy as np
 import pytest
 
-from fwav_tpu.config import DAMPED_DECODE_DAMPING
-from fwav_tpu.io.compact import (
+from fwav.config import DAMPED_DECODE_DAMPING
+from fwav.io.compact import (
     FLAG_DECODE_HINT,
     compact_bytes,
     describe_layout,
     parse_compact_bytes,
     parse_decode_hint,
 )
-from fwav_tpu.io.wav import write_wav
-from fwav_tpu.models.codec import (
+from fwav.io.wav import write_wav
+from fwav.models.codec import (
     _stored_decode_hint,
     process_file_compress,
     process_file_decompress,
 )
-from fwav_tpu.models.encode import compress_audio_arrays, prune_bank
+from fwav.models.encode import compress_audio_arrays, prune_bank
 
 
 def _sig(seconds=1.2, sr=16000, seed=0):
@@ -156,7 +156,7 @@ def test_multichannel_hint(tmp_path):
 
 
 def test_cli_info_reports_hint(tmp_path, capsys):
-    from fwav_tpu.cli import main
+    from fwav.cli import main
 
     sig, sr = _sig(seconds=0.6)
     wav = str(tmp_path / "in.wav")
@@ -175,7 +175,7 @@ def test_cli_compact_defaults_to_damped_profile(tmp_path, capsys):
     """--compact with no --profile picks damped and stores the hint (the
     showcased one-command path: ratio ~2.7 AND the ~40 dB profile); v1 and
     --profile default stay hintless."""
-    from fwav_tpu.cli import main
+    from fwav.cli import main
 
     sig, sr = _sig(seconds=0.6)
     wav = str(tmp_path / "in.wav")

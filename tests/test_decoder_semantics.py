@@ -5,8 +5,8 @@ fallback on degenerate tiles, convergence early break, fixed point."""
 import numpy as np
 import pytest
 
-from fwav_tpu import decompress_audio
-from fwav_tpu.io.container import MATCH_DTYPE
+from fwav import decompress_audio
+from fwav.io.container import MATCH_DTYPE
 
 
 def _golden_decode(matches, domains, n_ranges, range_size, iterations=8,
@@ -152,7 +152,7 @@ def test_fixed_point_fast_path_equals_device_loop():
 
 
 def test_decoder_config_object():
-    from fwav_tpu.config import DecoderConfig
+    from fwav.config import DecoderConfig
 
     matches, domains = _fixture(4)
     a = decompress_audio(matches, domains, len(matches), 4,
@@ -165,7 +165,7 @@ def test_decoder_config_object():
 def test_sharded_device_decode_matches_golden(monkeypatch):
     """The damped (device while_loop) decode must shard over ranges without
     changing results — exercised by shrinking DECODE_SHARD_RANGES."""
-    import fwav_tpu.models.decode as D
+    import fwav.models.decode as D
 
     monkeypatch.setattr(D, "DECODE_SHARD_RANGES", 16)
     matches, domains = _fixture(5, n_ranges=50)
@@ -187,7 +187,7 @@ def test_long_damped_decode_does_not_block_short_decodes(monkeypatch):
     complete before it finishes instead of starving behind it."""
     import threading
 
-    import fwav_tpu.models.decode as D
+    import fwav.models.decode as D
 
     monkeypatch.setattr(D, "DECODE_SHARD_RANGES", 256)
     matches, domains = _fixture(6, n_ranges=40)

@@ -1,9 +1,9 @@
 """Multi-process (multi-host analog) validation: 2-process CPU loopback.
 
 The reference's only multi-process scaling is N CPU workers + mp.Queues on
-one host (fractal.py:1176-1237). The TPU-native analog is JAX's distributed
+one host (fractal.py:1176-1237). The analog here is JAX's distributed
 runtime: parallel.mesh.init_distributed forms a GLOBAL mesh whose
-collectives ride DCN across processes (VERDICT r4 item 8 — previously
+collectives run across processes (VERDICT r4 item 8 — previously
 smoke-tested at num_processes=1 only). This test launches two REAL
 jax.distributed processes over localhost (CPU backend, 4 local devices
 each), forms the 8-device global (dp=4, tp=2) mesh in each, and runs the
@@ -33,9 +33,9 @@ assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 assert len(jax.local_devices()) == 4, len(jax.local_devices())
 
-from fwav_tpu.parallel.mesh import make_mesh, init_distributed  # noqa: F401
-from fwav_tpu.parallel.shard import compress_audio_sharded
-from fwav_tpu.models.encode import compress_audio_arrays
+from fwav.parallel.mesh import make_mesh, init_distributed  # noqa: F401
+from fwav.parallel.shard import compress_audio_sharded
+from fwav.models.encode import compress_audio_arrays
 
 rng = np.random.default_rng(7)
 t = np.arange(16000 * 2) / 16000.0

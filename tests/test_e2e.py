@@ -5,7 +5,7 @@ silent input, short input)."""
 import numpy as np
 import pytest
 
-from fwav_tpu import (
+from fwav import (
     compress_audio,
     compress_audio_arrays,
     compute_snr,
@@ -13,8 +13,8 @@ from fwav_tpu import (
     load_compressed,
     save_compressed,
 )
-from fwav_tpu.io.wav import read_wav_mono, write_wav
-from fwav_tpu.models.codec import process_file_compress, process_file_decompress
+from fwav.io.wav import read_wav_mono, write_wav
+from fwav.models.codec import process_file_compress, process_file_decompress
 
 
 def test_compress_decompress_e2e(tone, tmp_path):
@@ -75,7 +75,7 @@ def test_exact_match_error_dominates_topk(speechlike):
     ex = errs["exact"]["err"][live].astype(np.float64)
     tk = errs["topk"]["err"][live].astype(np.float64)
     # per-range centered energy bound for the score-resolution slack
-    from fwav_tpu.ops.vad import voiced_detection
+    from fwav.ops.vad import voiced_detection
 
     w = sig * voiced_detection(sig, frame_size=2 * range_size,
                                energy_threshold=1e-4)
@@ -171,7 +171,7 @@ def test_matches_accept_list_dict_and_recarray(tone):
     sig, sr, sw = tone
     matches, domains, n_ranges, range_size, *_ = compress_audio(sig, sr, sw, tile_size=128)
     as_list = decompress_audio(matches, domains, n_ranges, range_size, original_len=len(sig))
-    from fwav_tpu.io.container import matches_to_struct
+    from fwav.io.container import matches_to_struct
 
     rec = matches_to_struct(matches)
     as_rec = decompress_audio(rec, domains, n_ranges, range_size, original_len=len(sig))
@@ -187,7 +187,7 @@ def test_encode_is_deterministic(tone, tmp_path):
     """The fused single-program design removes the reference's process/queue
     race surface (SURVEY.md §5): two encodes of the same input must produce
     byte-identical .fwav files."""
-    from fwav_tpu.io.container import save_compressed
+    from fwav.io.container import save_compressed
 
     sig, sr, sw = tone
     paths = []
@@ -275,7 +275,7 @@ def test_signal_exactly_one_tile():
 def test_all_sentinel_file_round_trip(tmp_path):
     """A file whose every match is the -1 sentinel (nonzero n_ranges, zero
     usable domains) must decode to silence of the right length."""
-    from fwav_tpu.io.container import MATCH_DTYPE
+    from fwav.io.container import MATCH_DTYPE
 
     rec = np.zeros(10, dtype=MATCH_DTYPE)
     rec["idx"] = -1
@@ -322,7 +322,7 @@ def test_fast_mode_tail_refit_matches_weighted_semantics():
     # reflected samples reaching back into a 6-frame quiet stretch.
     import numpy as np
 
-    from fwav_tpu.models.encode import compress_audio_arrays
+    from fwav.models.encode import compress_audio_arrays
 
     rng = np.random.default_rng(17)
     ns = 2049
@@ -350,8 +350,8 @@ def test_auto_never_resolves_to_topk():
     'topk' is the reference-shaped compatibility mode and must be an
     explicit opt-in (VERDICT r2 item 8) — asserted across bank sizes
     spanning both sides of every auto threshold."""
-    from fwav_tpu.config import EncoderConfig
-    from fwav_tpu.models.encode import _resolve_search
+    from fwav.config import EncoderConfig
+    from fwav.models.encode import _resolve_search
 
     for tile in (128, 1024, 4096):
         cfg = EncoderConfig(tile_size=tile, search="auto")

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.fftpack import dct
 
-from fwav_tpu.ops.dct import (
+from fwav.ops.dct import (
     dct2_matrix,
     multi_head_embedding,
     multi_head_embedding_batch,

@@ -5,7 +5,7 @@ invariants and the decode-quality bound."""
 import numpy as np
 import pytest
 
-from fwav_tpu import (
+from fwav import (
     compress_audio_arrays,
     compute_snr,
     decompress_audio,
@@ -100,8 +100,8 @@ def test_fuzz_sharded_bit_equal(seed):
     single-device encoder."""
     import jax
 
-    from fwav_tpu.parallel.mesh import make_mesh
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.parallel.mesh import make_mesh
+    from fwav.parallel.shard import compress_audio_sharded
 
     rng = np.random.default_rng(1000 + seed)
     sr = int(rng.choice([8000, 16000, 44100]))

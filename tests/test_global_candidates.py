@@ -15,8 +15,8 @@ the full bank for every range; streaming alone doesn't.
 import numpy as np
 import pytest
 
-from fwav_tpu import compute_snr, decompress_audio
-from fwav_tpu.models.stream import (
+from fwav import compute_snr, decompress_audio
+from fwav.models.stream import (
     compress_audio_streaming,
     domain_block_iter,
 )
@@ -97,7 +97,7 @@ def test_global_pass_mesh_bit_equal(dp, tp, enc):
     # pair slabs split over every device (flat dp x tp); the per-pair
     # program is identical at every sharding and the merge is host-side
     # float64, so records stay bit-equal to single-device
-    from fwav_tpu.parallel.mesh import make_mesh
+    from fwav.parallel.mesh import make_mesh
 
     sig, sr, on, _ = enc
     mesh = make_mesh(dp * tp, dp=dp, tp=tp)
@@ -120,7 +120,7 @@ def test_global_pass_resume(tmp_path, enc):
 def test_global_pass_auto_stride_valve(monkeypatch):
     # forcing a tiny nomination-grid cap doubles the stride (the long-file
     # cost valve); the pass still runs and still helps
-    import fwav_tpu.models.stream as stream_mod
+    import fwav.models.stream as stream_mod
 
     sig, sr = _sig(seconds=1.0, seed=5)
     monkeypatch.setattr(stream_mod, "GLOBAL_NOM_ROWS", 2)
@@ -135,7 +135,7 @@ def test_global_pass_auto_stride_valve(monkeypatch):
 def test_global_pass_device_budget_skip(monkeypatch, enc):
     # beyond the whole-file device budget the pass degrades to the
     # halo-local search (with a warning), never to an error
-    import fwav_tpu.models.stream as stream_mod
+    import fwav.models.stream as stream_mod
 
     sig, sr, on, off = enc
     monkeypatch.setattr(stream_mod, "GLOBAL_PASS_MAX_ROWS", 1)
@@ -147,7 +147,7 @@ def test_global_pass_mesh_resume_compose(tmp_path, enc):
     # mesh x resume x global pass: checkpoints written under a mesh are
     # pre-pass local records; a resumed mesh encode re-runs the pass and
     # reproduces the single-device records bit for bit
-    from fwav_tpu.parallel.mesh import make_mesh
+    from fwav.parallel.mesh import make_mesh
 
     sig, sr, on, _ = enc
     rdir = str(tmp_path / "ckpt")
@@ -163,7 +163,7 @@ def test_global_pass_mesh_resume_compose(tmp_path, enc):
 def test_bank_rows_host_scattered_matches_2d_gather():
     # the column-looped scattered path (21x faster at millions of rows)
     # must stay bit-identical to the plain 2-D fancy-index formula
-    from fwav_tpu.ops.domains import bank_rows_host
+    from fwav.ops.domains import bank_rows_host
 
     rng = np.random.default_rng(2)
     signal = rng.standard_normal(50_000).astype(np.float32)
@@ -179,57 +179,37 @@ def test_bank_rows_host_scattered_matches_2d_gather():
     np.testing.assert_array_equal(got, want)
 
 
-def test_global_pass_pallas_nomination_kernel(monkeypatch):
-    # with use_pallas forced on (interpret mode off-TPU) the pass's
-    # nomination runs through the fused top-C scan kernel; the resulting
-    # records must keep the sentinel discipline and quality parity with
-    # the lax.scan nomination (selection-grade agreement — near-ties may
-    # differ, the decode metric may not)
-    import fwav_tpu.ops.pallas_search as ps
-    from fwav_tpu.config import EncoderConfig
-    from fwav_tpu.models.encode import _encode_core, _encode_core_chunked
+def test_global_pass_pallas_nomination_kernel(kernel_interpret):
+    # with use_pallas forced on (the kernel interpreted explicitly) the
+    # pass's nomination runs through the fused top-C scan kernel; the
+    # resulting records must keep the sentinel discipline and quality
+    # parity with the lax.scan nomination (selection-grade agreement —
+    # near-ties may differ, the decode metric may not)
+    from fwav.config import EncoderConfig
 
-    counts = {}
-    orig = ps.topc_search_scan_pallas
-
-    def wrapped(*a, **kw):
-        counts["n"] = counts.get("n", 0) + 1
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(ps, "topc_search_scan_pallas", wrapped)
-    _encode_core.cache_clear()
-    _encode_core_chunked.cache_clear()
-    try:
-        sig, sr = _sig(seconds=1.0, seed=7)
-        base_cfg = dict(tile_size=128, objective="damped")
-        kw = dict(shard_samples=4096, halo=2048)
-        want = compress_audio_streaming(
-            sig, sr, 2, config=EncoderConfig(use_pallas=False, **base_cfg),
-            **kw,
-        )
-        assert counts.get("n", 0) == 0
-        got = compress_audio_streaming(
-            sig, sr, 2, config=EncoderConfig(use_pallas=True, **base_cfg),
-            **kw,
-        )
-        assert counts["n"] >= 1
-        snr_w = compute_snr(sig, _decode(sig, want))
-        snr_g = compute_snr(sig, _decode(sig, got))
-        assert abs(snr_w - snr_g) < 0.5, (snr_w, snr_g)
-        np.testing.assert_array_equal(
-            got[0]["idx"] == -1, want[0]["idx"] == -1
-        )
-    finally:
-        _encode_core.cache_clear()
-        _encode_core_chunked.cache_clear()
+    sig, sr = _sig(seconds=1.0, seed=7)
+    base_cfg = dict(tile_size=128, objective="damped")
+    kw = dict(shard_samples=4096, halo=2048)
+    want = compress_audio_streaming(
+        sig, sr, 2, config=EncoderConfig(use_pallas=False, **base_cfg), **kw,
+    )
+    assert kernel_interpret["scan_topc"] == 0
+    got = compress_audio_streaming(
+        sig, sr, 2, config=EncoderConfig(use_pallas=True, **base_cfg), **kw,
+    )
+    assert kernel_interpret["scan_topc"] >= 1
+    snr_w = compute_snr(sig, _decode(sig, want))
+    snr_g = compute_snr(sig, _decode(sig, got))
+    assert abs(snr_w - snr_g) < 0.5, (snr_w, snr_g)
+    np.testing.assert_array_equal(got[0]["idx"] == -1, want[0]["idx"] == -1)
 
 
 def test_global_pass_int32_protocol_branch(monkeypatch, enc):
     # whole-file banks past PACK3_MAX_ROWS switch both pass transfers to
     # int32; forcing the threshold to 0 must reproduce the 3-byte-protocol
     # records bit for bit (only the transport encoding changes)
-    import fwav_tpu.models.encode as encode_mod
-    from fwav_tpu.models.encode import _encode_core, _encode_core_chunked
+    import fwav.models.encode as encode_mod
+    from fwav.models.encode import _encode_core, _encode_core_chunked
 
     sig, sr, on, _ = enc
     monkeypatch.setattr(encode_mod, "PACK3_MAX_ROWS", 0)
@@ -246,7 +226,7 @@ def test_global_pass_int32_protocol_branch(monkeypatch, enc):
 def test_streaming_phase_timings_cover_the_pass():
     # the tracing subsystem (SURVEY §5) must see the streaming stages,
     # including the global pass, so slow encodes are attributable
-    from fwav_tpu.utils.trace import collect_phases
+    from fwav.utils.trace import collect_phases
 
     sig, sr = _sig(seconds=1.0, seed=5)
     with collect_phases() as phases:
@@ -285,7 +265,7 @@ def test_global_pass_geometry_fuzz(seed):
     assert len(rec_on) == len(rec_off) == on[2]
     # sentinels never resurrected; every rewritten row is a valid domain
     np.testing.assert_array_equal(rec_on["idx"] == -1, rec_off["idx"] == -1)
-    from fwav_tpu.ops.domains import n_domains_for
+    from fwav.ops.domains import n_domains_for
 
     d_total = n_domains_for(len(sig), kw["tile_size"], on[5])
     live = rec_on["idx"] >= 0
@@ -297,7 +277,7 @@ def test_global_pass_geometry_fuzz(seed):
     assert snr_on >= snr_off - 0.01, (snr_on, snr_off)
     # and the mesh path stays bit-equal on this random geometry
     if seed == 0:
-        from fwav_tpu.parallel.mesh import make_mesh
+        from fwav.parallel.mesh import make_mesh
 
         got = compress_audio_streaming(
             sig, sr, 2, mesh=make_mesh(4, dp=2, tp=2), **kw

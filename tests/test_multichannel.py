@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-from fwav_tpu.cli import main as cli_main
-from fwav_tpu.io.multich import (
+from fwav.cli import main as cli_main
+from fwav.io.multich import (
     TRANSFORM_DIRECT,
     TRANSFORM_MS,
     load_compressed_multi,
@@ -20,9 +20,9 @@ from fwav_tpu.io.multich import (
     ms_inverse,
     save_compressed_multi,
 )
-from fwav_tpu.io.wav import read_wav, read_wav_mono, write_wav
-from fwav_tpu.models.codec import process_file_compress, process_file_decompress
-from fwav_tpu.utils.metrics import compute_snr
+from fwav.io.wav import read_wav, read_wav_mono, write_wav
+from fwav.models.codec import process_file_compress, process_file_decompress
+from fwav.utils.metrics import compute_snr
 
 
 def _stereo(seconds=1.2, sr=16000, seed=0, corr=True):
@@ -106,7 +106,7 @@ def test_ms_transform_inverse_exact():
 # ------------------------------------------------------------ v3 container
 
 def _encode_channels(ch, sr, **kw):
-    from fwav_tpu.models.encode import compress_audio_arrays, prune_bank
+    from fwav.models.encode import compress_audio_arrays, prune_bank
 
     out = []
     for c in range(ch.shape[1]):
@@ -137,8 +137,8 @@ def test_v3_container_round_trip(tmp_path):
 
 
 def test_v3_rejected_by_mono_loaders(tmp_path):
-    from fwav_tpu.io.compact import load_compressed_compact
-    from fwav_tpu.io.container import (
+    from fwav.io.compact import load_compressed_compact
+    from fwav.io.container import (
         load_compressed_arrays,
         read_matches,
         read_version,
@@ -159,7 +159,7 @@ def test_v3_rejected_by_mono_loaders(tmp_path):
 def test_v3_loader_rejects_non_v3(tmp_path):
     ch, sr = _stereo()
     t = _encode_channels(ch[:, :1], sr)[0]
-    from fwav_tpu.io.compact import save_compressed_compact
+    from fwav.io.compact import save_compressed_compact
 
     p2 = tmp_path / "v2.fwav"
     save_compressed_compact(p2, *t)
@@ -273,7 +273,7 @@ def test_file_api_keep_on_mono_degrades_to_mono_container(tmp_path):
     out = process_file_compress(str(wav), str(tmp_path / "m.fwav"),
                                 channels="keep")
     assert "error" not in out, out
-    from fwav_tpu.io.container import read_version
+    from fwav.io.container import read_version
 
     assert read_version(tmp_path / "m.fwav") == 1
     dec = process_file_decompress(str(tmp_path / "m.fwav"),
@@ -477,7 +477,7 @@ def test_keep_composes_with_damped_profile(tmp_path):
 def test_keep_streaming_path_matches_single_shot(tmp_path, monkeypatch):
     """Long multichannel files stream per channel (_streamed_pruned);
     the records must match the single-shot packed encode exactly."""
-    from fwav_tpu.models import codec
+    from fwav.models import codec
 
     ch, sr = _stereo(seed=4)
     wav = tmp_path / "st.wav"
@@ -509,7 +509,7 @@ def test_cli_batch_composes_with_channels_keep(tmp_path, capsys):
     outdir = tmp_path / "out"
     assert cli_main(["compress", str(tmp_path), "--batch", "--workers", "2",
                      "--channels", "keep", "--out", str(outdir)]) == 0
-    from fwav_tpu.io.container import read_version
+    from fwav.io.container import read_version
 
     assert read_version(outdir / "st.wav.fwav") == 3
     assert read_version(outdir / "mono.wav.fwav") != 3

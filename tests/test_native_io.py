@@ -6,8 +6,8 @@ import hashlib
 import numpy as np
 import pytest
 
-from fwav_tpu.io import native
-from fwav_tpu.io.container import (
+from fwav.io import native
+from fwav.io.container import (
     MATCH_DTYPE,
     load_compressed_arrays,
     matches_to_struct,
@@ -91,7 +91,7 @@ def test_container_api_uses_native_transparently(tmp_path, sample):
     """load_compressed_arrays must give identical results whichever backend
     serviced it (it prefers native when built)."""
     rec, domains, hdr = sample
-    from fwav_tpu.io.container import save_compressed
+    from fwav.io.container import save_compressed
 
     p = tmp_path / "t.fwav"
     save_compressed(p, rec, domains, **hdr)

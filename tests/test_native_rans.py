@@ -7,8 +7,8 @@ head-to-head discipline as test_native_refit.py."""
 import numpy as np
 import pytest
 
-from fwav_tpu.io import native, rans
-from fwav_tpu.io.rans import _decode_np, _encode_np, quantize_freqs
+from fwav.io import native, rans
+from fwav.io.rans import _decode_np, _encode_np, quantize_freqs
 
 pytestmark = pytest.mark.skipif(
     not native.available()
@@ -70,7 +70,7 @@ def test_native_truncation_raises_like_spec():
 @pytest.mark.parametrize("m,bits", [(1, 1), (7, 3), (255, 19), (4096, 24),
                                     (100_001, 25), (50_000, 12)])
 def test_native_pack_bits_bit_identical(m, bits):
-    from fwav_tpu.io import compact as C
+    from fwav.io import compact as C
 
     rng = np.random.default_rng(m + bits)
     v = rng.integers(0, 1 << bits, m).astype(np.int64)

@@ -11,8 +11,8 @@ round-off (accumulation order differs: one fused pass vs BLAS reductions).
 import numpy as np
 import pytest
 
-from fwav_tpu.io import native
-from fwav_tpu.ops import affine
+from fwav.io import native
+from fwav.ops import affine
 
 
 needs_native = pytest.mark.skipif(
@@ -108,7 +108,7 @@ def test_native_collect_matches_numpy_collect(monkeypatch):
     # the fused 3-byte-code -> record pass vs the numpy implementation in
     # models/encode.collect_idx_matches (selection fields must be identical;
     # refit floats to float32 round-off)
-    from fwav_tpu.models import encode as enc
+    from fwav.models import encode as enc
 
     rng = np.random.default_rng(5)
     m, d, n = 3000, 8000, 4
@@ -122,7 +122,7 @@ def test_native_collect_matches_numpy_collect(monkeypatch):
 
     rec_native = enc.collect_idx_matches(codes, m, ranges, bank, 16.0)
 
-    import fwav_tpu.io.native as native_mod
+    import fwav.io.native as native_mod
 
     monkeypatch.setattr(native_mod, "collect", lambda *a: None)
     affine._FORCE_NUMPY_REFIT = True

@@ -14,7 +14,7 @@ import json
 import numpy as np
 import pytest
 
-from fwav_tpu import compress_audio_arrays, compress_audio_packed
+from fwav import compress_audio_arrays, compress_audio_packed
 
 
 def _sigs():
@@ -49,7 +49,7 @@ def test_packed_matches_single_shot():
 def test_packed_order_and_pack_boundary():
     # >PACK_B_MAX same-bucket files: exercises chunking + pow2 padding and
     # proves results return in input order
-    from fwav_tpu.models.encode import PACK_B_MAX
+    from fwav.models.encode import PACK_B_MAX
 
     rng = np.random.default_rng(9)
     n = 12000
@@ -69,9 +69,9 @@ def test_packed_order_and_pack_boundary():
 
 
 def test_cli_packed_batch(tmp_path):
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.container import load_compressed_arrays
-    from fwav_tpu.io.wav import write_wav
+    from fwav.cli import main as cli_main
+    from fwav.io.container import load_compressed_arrays
+    from fwav.io.wav import write_wav
 
     rng = np.random.default_rng(11)
     indir = tmp_path / "wavs"
@@ -104,10 +104,10 @@ def test_packed_routes_long_files_to_streaming(tmp_path, monkeypatch):
     # a "long" file (over STREAMING_THRESHOLD) in a packed batch must take
     # the single-file streaming path instead of sinking the whole run on
     # the packed encoder's index-range check
-    import fwav_tpu.models.codec as codec
-    from fwav_tpu.io.container import load_compressed_arrays
-    from fwav_tpu.io.wav import write_wav
-    from fwav_tpu.models.codec import process_files_compress_packed
+    import fwav.models.codec as codec
+    from fwav.io.container import load_compressed_arrays
+    from fwav.io.wav import write_wav
+    from fwav.models.codec import process_files_compress_packed
 
     monkeypatch.setattr(codec, "STREAMING_THRESHOLD", 8000)
     rng = np.random.default_rng(13)
@@ -135,9 +135,9 @@ def test_packed_routes_long_files_to_streaming(tmp_path, monkeypatch):
 
 def test_packed_falls_back_per_file_on_encoder_failure(tmp_path, monkeypatch):
     # packed-encode failure must resolve blame per file, not sink the batch
-    import fwav_tpu.models.encode as encode
-    from fwav_tpu.io.wav import write_wav
-    from fwav_tpu.models.codec import process_files_compress_packed
+    import fwav.models.encode as encode
+    from fwav.io.wav import write_wav
+    from fwav.models.codec import process_files_compress_packed
 
     def boom(*a, **k):
         raise RuntimeError("injected")
@@ -153,7 +153,7 @@ def test_packed_falls_back_per_file_on_encoder_failure(tmp_path, monkeypatch):
 
 
 def test_cli_packed_flag_conflicts():
-    from fwav_tpu.cli import main as cli_main
+    from fwav.cli import main as cli_main
 
     with pytest.raises(SystemExit):
         cli_main(["compress", "in.wav", "out.fwav", "--packed"])
@@ -167,7 +167,7 @@ def test_packed_file_dp_bit_equal():
     # over the whole mesh (whole files per device, zero communication) —
     # records bit-equal to the unsharded packed dispatch, every input
     # shape class included (empty / all-silent / float / mixed buckets)
-    from fwav_tpu.parallel.mesh import make_mesh
+    from fwav.parallel.mesh import make_mesh
 
     sigs = _sigs()
     want = compress_audio_packed(sigs, 16000, 2)
@@ -185,8 +185,8 @@ def test_packed_devices_overask_fails_cleanly(tmp_path):
     # asking for more devices than exist must produce per-file error dicts
     # and exit code 1 — not an uncaught traceback (the single-file path's
     # contract)
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.wav import write_wav
+    from fwav.cli import main as cli_main
+    from fwav.io.wav import write_wav
 
     write_wav(tmp_path / "a.wav", np.zeros(8000, np.float32), 16000, 2)
     rc = cli_main(["compress", str(tmp_path), "--batch", "--packed",
@@ -200,8 +200,8 @@ def test_packed_devices_overask_fails_cleanly(tmp_path):
 
 def test_cli_packed_batch_with_devices(tmp_path):
     # the CLI wires --batch --packed --devices N to the file-DP dispatch
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.wav import write_wav
+    from fwav.cli import main as cli_main
+    from fwav.io.wav import write_wav
 
     rng = np.random.default_rng(0)
     for k in range(3):

@@ -1,32 +1,24 @@
-"""Pallas kernels under shard_map (VERDICT r3 item 4): force
-config.use_pallas=True on the virtual 8-device CPU mesh so the REAL encode
-kernel branches — the exact-tp scan (models.encode.run_search_tp use_p=True)
-and the coarse lobe-scan + window-refine kernels inside the tp range-split
-path — execute in pytest, in interpret mode (ops.pallas_search resolves
-interpret=None to the interpreter off-TPU).
+"""The Pallas search kernel under shard_map: config.use_pallas=True on the
+virtual 8-device CPU mesh, with the kernel routed through the Pallas
+interpreter (the `kernel_interpret` fixture passes interpret=True), so the
+REAL encode kernel branches — the exact-tp scan (models.encode.run_search_tp)
+and the coarse lobe scan inside the tp range-split path — execute in pytest.
 
 Two claims per configuration:
-1. the kernel actually RAN (counted via a wrapper — a silently-failed gate
-   would otherwise turn these into oracle-vs-oracle tautologies), and
-2. records are bit-equal across shardings / to the lax.scan oracle where
-   the round-4 unification promises it (coarse tp>1 == tp=1 by range-split
-   construction; exact kernel-tp == scan-tp=1 because interpret-mode dots
-   are the same f32 arithmetic as the scan's CPU dots).
+1. the kernel actually RAN (counted at trace time — a silently skipped
+   branch would otherwise turn these into oracle-vs-oracle tautologies), and
+2. records are bit-equal across shardings / to the lax.scan oracle (coarse
+   tp>1 == tp=1 by range-split construction; exact kernel-tp == scan-tp=1
+   because both score in f32 on the CPU).
 """
 
 import numpy as np
 import pytest
 
-import fwav_tpu.ops.pallas_search as ps
-from fwav_tpu.config import EncoderConfig
-from fwav_tpu.models.encode import (
-    _encode_core,
-    _encode_core_chunked,
-    _sharded_encode_core,
-    compress_audio_arrays,
-)
-from fwav_tpu.parallel.mesh import make_mesh
-from fwav_tpu.parallel.shard import compress_audio_sharded
+from fwav.config import EncoderConfig
+from fwav.models.encode import compress_audio_arrays
+from fwav.parallel.mesh import make_mesh
+from fwav.parallel.shard import compress_audio_sharded
 
 
 def _sig(n, seed=3):
@@ -40,33 +32,8 @@ def _sig(n, seed=3):
     return np.round(sig * 12000).astype(np.float32), sr
 
 
-@pytest.fixture
-def kernel_counters(monkeypatch):
-    """Count invocations of each Pallas wrapper at TRACE time (the encode
-    cores import them inside the traced closures, so wrapping the module
-    attribute is enough) and clear the jit caches so every variant under
-    test re-traces through the wrappers."""
-    counts = {}
-    for name in ("exact_search_scan_pallas", "refine_window_pallas",
-                 "topc_search_scan_pallas"):
-        orig = getattr(ps, name)
-
-        def wrapped(*a, _orig=orig, _name=name, **kw):
-            counts[_name] = counts.get(_name, 0) + 1
-            return _orig(*a, **kw)
-
-        monkeypatch.setattr(ps, name, wrapped)
-    _encode_core.cache_clear()
-    _encode_core_chunked.cache_clear()
-    _sharded_encode_core.cache_clear()
-    yield counts
-    _encode_core.cache_clear()
-    _encode_core_chunked.cache_clear()
-    _sharded_encode_core.cache_clear()
-
-
-def test_exact_tp_kernel_under_shard_map(kernel_counters):
-    """run_search_tp's use_p=True branch (exact kernel scan on each bank
+def test_exact_tp_kernel_under_shard_map(kernel_interpret):
+    """run_search_tp's use_pallas branch (exact kernel scan on each bank
     row-shard) executes under shard_map and matches the lax.scan oracle
     bit for bit."""
     sig, sr = _sig(16001)
@@ -74,11 +41,11 @@ def test_exact_tp_kernel_under_shard_map(kernel_counters):
     rec_o, dom_o, n_o, rs_o, *_ = compress_audio_arrays(
         sig, sr, 2, config=EncoderConfig(search="exact", use_pallas=False)
     )
-    assert kernel_counters.get("exact_search_scan_pallas", 0) == 0
+    assert kernel_interpret["scan_topc"] == 0
     rec_k, dom_k, n_k, rs_k, *_ = compress_audio_sharded(
         sig, sr, 2, mesh=make_mesh(8, dp=4, tp=2), **kw
     )
-    assert kernel_counters["exact_search_scan_pallas"] >= 1
+    assert kernel_interpret["scan_topc"] >= 1
     assert (n_k, rs_k) == (n_o, rs_o)
     np.testing.assert_array_equal(dom_k, dom_o)
     for f in ("idx", "s", "o", "sym", "err"):
@@ -86,23 +53,20 @@ def test_exact_tp_kernel_under_shard_map(kernel_counters):
 
 
 @pytest.mark.parametrize("dp,tp", [(2, 2), (1, 4)])
-def test_coarse_kernel_tp_equals_tp1(dp, tp, kernel_counters):
+def test_coarse_kernel_tp_equals_tp1(dp, tp, kernel_interpret):
     """The round-4 unification claim with the kernel path ACTIVE: coarse
     search with use_pallas=True produces bit-identical records at tp>1
     (range-split under shard_map) and tp=1 — the divergence VERDICT r3
-    weak item 3 carved out. Both the fused lobe scan and the dense window
-    refine kernel run on every shard."""
+    weak item 3 carved out. The fused lobe scan runs on every shard."""
     sig, sr = _sig(66000)
     kw = dict(config=EncoderConfig(search="coarse", use_pallas=True))
     rec_1, dom_1, n_1, rs_1, *_ = compress_audio_arrays(sig, sr, 2, **kw)
-    scans_1 = kernel_counters.get("exact_search_scan_pallas", 0)
-    refines_1 = kernel_counters.get("refine_window_pallas", 0)
-    assert scans_1 >= 1 and refines_1 >= 1  # tp=1 kernel path active
+    scans_1 = kernel_interpret["scan_topc"]
+    assert scans_1 >= 1  # tp=1 kernel path active
     rec_n, dom_n, n_n, rs_n, *_ = compress_audio_sharded(
         sig, sr, 2, mesh=make_mesh(dp * tp, dp=dp, tp=tp), **kw
     )
-    assert kernel_counters["exact_search_scan_pallas"] > scans_1
-    assert kernel_counters["refine_window_pallas"] > refines_1
+    assert kernel_interpret["scan_topc"] > scans_1
     assert (n_n, rs_n) == (n_1, rs_1)
     np.testing.assert_array_equal(dom_n, dom_1)
     for f in ("idx", "s", "o", "sym", "err"):
@@ -110,21 +74,20 @@ def test_coarse_kernel_tp_equals_tp1(dp, tp, kernel_counters):
     assert (rec_1["idx"] == -1).sum() > 0  # sentinels exercised
 
 
-def test_damped_multilobe_kernels_tp_equals_tp1(kernel_counters):
-    """The damped profile's multi-lobe coarse (topc_search_scan_pallas +
-    one refine_window_pallas per lobe) under the tp range-split — the
-    combination round 3 refused outright — bit-equal to tp=1."""
+def test_damped_multilobe_kernels_tp_equals_tp1(kernel_interpret):
+    """The damped profile's multi-lobe coarse (the top-C kernel scan + the
+    XLA window refine) under the tp range-split — the combination round 3
+    refused outright — bit-equal to tp=1."""
     sig, sr = _sig(66000, seed=5)
     kw = dict(config=EncoderConfig(search="coarse", objective="damped",
                                use_pallas=True))
     rec_1, dom_1, n_1, rs_1, *_ = compress_audio_arrays(sig, sr, 2, **kw)
-    topc_1 = kernel_counters.get("topc_search_scan_pallas", 0)
+    topc_1 = kernel_interpret["scan_topc"]
     assert topc_1 >= 1
     rec_n, _, n_n, rs_n, *_ = compress_audio_sharded(
         sig, sr, 2, mesh=make_mesh(4, dp=2, tp=2), **kw
     )
-    assert kernel_counters["topc_search_scan_pallas"] > topc_1
-    assert kernel_counters["refine_window_pallas"] > 0
+    assert kernel_interpret["scan_topc"] > topc_1
     assert (n_n, rs_n) == (n_1, rs_1)
     for f in ("idx", "s", "o", "sym", "err"):
         np.testing.assert_array_equal(rec_n[f], rec_1[f], err_msg=f)

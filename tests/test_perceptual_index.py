@@ -4,15 +4,15 @@
 import numpy as np
 import pytest
 
-from fwav_tpu.ops.affine import find_best_domain_affine
-from fwav_tpu.ops.dct import multi_head_embedding_batch
-from fwav_tpu.ops.index import (
+from fwav.ops.affine import find_best_domain_affine
+from fwav.ops.dct import multi_head_embedding_batch
+from fwav.ops.index import (
     MIPSIndex,
     ann_query,
     build_ann_index,
     build_domain_embeddings,
 )
-from fwav_tpu.ops.perceptual import (
+from fwav.ops.perceptual import (
     compute_transient_mask,
     mel_filterbank,
     perceptual_error_batch,

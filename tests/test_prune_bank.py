@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from fwav_tpu import compress_audio_arrays, compute_snr, decompress_audio
-from fwav_tpu.io.wav import read_wav_mono, write_wav
-from fwav_tpu.models.codec import process_file_compress, process_file_decompress
-from fwav_tpu.models.encode import prune_bank
+from fwav import compress_audio_arrays, compute_snr, decompress_audio
+from fwav.io.wav import read_wav_mono, write_wav
+from fwav.models.codec import process_file_compress, process_file_decompress
+from fwav.models.encode import prune_bank
 
 
 def test_prune_bank_decodes_identically(speechlike):
@@ -85,7 +85,7 @@ def test_pruned_file_decodes_with_reference(tmp_path, tone):
 
 
 def test_streaming_prune_bank(tmp_path, monkeypatch):
-    import fwav_tpu.models.codec as codec
+    import fwav.models.codec as codec
 
     monkeypatch.setattr(codec, "STREAMING_THRESHOLD", 8000)
     rng = np.random.default_rng(0)

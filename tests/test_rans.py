@@ -6,7 +6,7 @@ corrupt/truncated streams raise instead of looping."""
 import numpy as np
 import pytest
 
-from fwav_tpu.io import rans
+from fwav.io import rans
 
 
 @pytest.mark.parametrize("seed", range(8))

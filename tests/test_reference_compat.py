@@ -50,7 +50,7 @@ def tone16k():
 
 def test_reference_fwav_decodes_with_ours(reference, tone16k, tmp_path):
     """reference encode -> reference save -> OUR load + decode."""
-    from fwav_tpu import compute_snr, decompress_audio, load_compressed
+    from fwav import compute_snr, decompress_audio, load_compressed
 
     sig, sr = tone16k
     matches, domains, n_ranges, range_size, tile, step, thr, olen = (
@@ -89,7 +89,7 @@ def test_reference_fwav_decodes_with_ours(reference, tone16k, tmp_path):
 
 def test_our_fwav_decodes_with_reference(reference, tone16k, tmp_path):
     """OUR encode + save -> reference load + decode."""
-    from fwav_tpu import compress_audio, compute_snr, save_compressed
+    from fwav import compress_audio, compute_snr, save_compressed
 
     sig, sr = tone16k
     matches, domains, n_ranges, range_size, tile, step, thr, olen = (
@@ -114,7 +114,7 @@ def test_our_fwav_decodes_with_reference(reference, tone16k, tmp_path):
 def test_round_trip_snr_beats_reference(reference, tmp_path):
     """Same signal through both full pipelines: our default round trip must
     meet or beat the reference's."""
-    from fwav_tpu import compress_audio_arrays, compute_snr, decompress_audio
+    from fwav import compress_audio_arrays, compute_snr, decompress_audio
 
     rng = np.random.default_rng(0)
     sr = 8000

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from fwav_tpu import compress_audio_arrays, compute_snr, decompress_audio
-from fwav_tpu.models.encode import prune_bank
+from fwav import compress_audio_arrays, compute_snr, decompress_audio
+from fwav.models.encode import prune_bank
 
 
 def test_tile_size_with_odd_range_factor():
@@ -44,8 +44,8 @@ def test_coarse_tiny_bank_never_emits_out_of_range_idx():
 @pytest.mark.parametrize("n_dev", [3, 6])
 def test_sharded_encode_odd_device_counts(tone, n_dev):
     """mb padding for non-power-of-two device counts used to loop forever."""
-    from fwav_tpu.parallel.mesh import make_mesh
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.parallel.mesh import make_mesh
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, sw = tone
     mesh = make_mesh(n_dev, dp=n_dev, tp=1)
@@ -59,7 +59,7 @@ def test_sharded_encode_odd_device_counts(tone, n_dev):
 def test_streaming_forwards_encoder_knobs():
     """fast_mode (and friends) must reach the shard encoder; unknown kwargs
     must raise instead of being silently dropped."""
-    from fwav_tpu.models.stream import compress_audio_streaming
+    from fwav.models.stream import compress_audio_streaming
 
     rng = np.random.default_rng(2)
     sr = 8000
@@ -83,8 +83,8 @@ def test_cli_batch_decompress_uppercase_extension(tmp_path, tone):
     """X.FWAV must produce X_recon.wav and be skipped on rerun."""
     import os
 
-    from fwav_tpu.cli import main
-    from fwav_tpu.io.wav import write_wav
+    from fwav.cli import main
+    from fwav.io.wav import write_wav
 
     sig, sr, _ = tone
     wav = tmp_path / "x.wav"
@@ -105,7 +105,7 @@ def test_h2d_chunked_records_bit_equal(speechlike, k):
     (k=3 never divides the pow2-factored bucket, exercising the fallback).
     Covers both transport dtypes: the int16-exact fixture and a float
     variant that fails the int16 rule."""
-    from fwav_tpu.config import EncoderConfig
+    from fwav.config import EncoderConfig
 
     sig, sr, sw = speechlike
     for signal in (sig, sig + np.float32(0.25)):
@@ -121,7 +121,7 @@ def test_unpack_bits_truncated_raises():
     """A truncated packed idx stream must raise the format ValueError, not
     zero-pad: np.unpackbits(count=N) silently pads a short buffer, which
     would decode truncation as silent zero indices (review round 4)."""
-    from fwav_tpu.io.compact import _pack_bits, _unpack_bits
+    from fwav.io.compact import _pack_bits, _unpack_bits
 
     vals = np.arange(100, dtype=np.int64)
     buf = _pack_bits(vals, 7)

@@ -7,15 +7,15 @@ closed-form (s, o), full recon L2, pad-mask to inf, argmin, clip-after."""
 import jax.numpy as jnp
 import numpy as np
 
-from fwav_tpu.ops.affine import batched_affine_match
-from fwav_tpu.ops.dct import multi_head_embedding_batch
-from fwav_tpu.ops.search import (
+from fwav.ops.affine import batched_affine_match
+from fwav.ops.dct import multi_head_embedding_batch
+from fwav.ops.search import (
     exact_search_block,
     pad_candidates,
     range_candidates_from_embedding_emb,
     topk_scores_block,
 )
-from fwav_tpu.ops.affine import affine_stats
+from fwav.ops.affine import affine_stats
 
 
 def _ref_affine_batch(ranges, domain_idxs, bank, s_clip=16.0):
@@ -212,3 +212,19 @@ def test_batched_affine_match_return_score_contract():
     np.testing.assert_array_equal(sym[live], (pick >= K).astype(np.uint8)[live])
     # the winner's slot is a valid (non-padded) candidate
     assert np.all(cand[np.arange(B), slot][live] >= 0)
+
+
+def test_fold_sum_is_a_left_fold_whatever_the_shape():
+    """fold_sum pins the tap-axis summation order to ((a+b)+c)+d for every
+    element, whatever the other dimensions (the selection must not depend
+    on the compiled chunk shape): [1e8, 1, -1e8, 1] sums to 1 left to right
+    in f32 and to 0 pairwise."""
+    from fwav.ops.search import fold_mean, fold_sum
+
+    row = np.array([1e8, 1.0, -1e8, 1.0], np.float32)
+    for m in (1, 3, 64):
+        x = jnp.asarray(np.tile(row, (m, 1)))
+        np.testing.assert_array_equal(np.asarray(fold_sum(x, 1)), np.ones(m))
+        np.testing.assert_array_equal(np.asarray(fold_sum(x.T, 0)), np.ones(m))
+        np.testing.assert_array_equal(np.asarray(fold_mean(x, -1)),
+                                      np.full(m, 0.25, np.float32))

@@ -11,12 +11,12 @@ reference (whole-file decoder only, fractal.py:1378-1473).
 import numpy as np
 import pytest
 
-from fwav_tpu import (
+from fwav import (
     compress_audio_arrays,
     decompress_audio,
     decompress_segment,
 )
-from fwav_tpu.models.encode import prune_bank
+from fwav.models.encode import prune_bank
 
 
 def _sig(seconds=1.3, sr=16000, seed=2):
@@ -83,9 +83,9 @@ def test_segment_damped_mode(_enc):
 
 
 def test_cli_start_duration(tmp_path, _enc):
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.container import save_compressed
-    from fwav_tpu.io.wav import read_wav_mono
+    from fwav.cli import main as cli_main
+    from fwav.io.container import save_compressed
+    from fwav.io.wav import read_wav_mono
 
     sig, sr, rec, bank, n_ranges, N, olen, full = _enc
     p = tmp_path / "x.fwav"
@@ -93,7 +93,7 @@ def test_cli_start_duration(tmp_path, _enc):
     out = tmp_path / "seg.wav"
     cli_main(["decompress", str(p), "--out", str(out),
               "--start", "0.25", "--duration", "0.5"])
-    from fwav_tpu.io.wav import write_wav
+    from fwav.io.wav import write_wav
 
     got, sr2, _ = read_wav_mono(out)
     assert sr2 == sr
@@ -110,9 +110,9 @@ def test_cli_segment_output_naming(tmp_path, _enc):
     # skip-resume against a later full decode
     import os
 
-    from fwav_tpu.cli import main as cli_main
-    from fwav_tpu.io.container import save_compressed
-    from fwav_tpu.io.wav import read_wav_mono
+    from fwav.cli import main as cli_main
+    from fwav.io.container import save_compressed
+    from fwav.io.wav import read_wav_mono
 
     sig, sr, rec, bank, n_ranges, N, olen, full = _enc
     d = tmp_path / "batch"

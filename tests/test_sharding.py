@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from fwav_tpu.ops.affine import affine_stats
-from fwav_tpu.ops.search import (
+from fwav.ops.affine import affine_stats
+from fwav.ops.search import (
     exact_search_block,
     exact_search_scan,
     merge_shard_bests,
 )
-from fwav_tpu.parallel.mesh import make_mesh
+from fwav.parallel.mesh import make_mesh
 
 
 def _problem(seed, M=64, D=512, N=4):
@@ -179,7 +179,7 @@ def _noise_fixture():
 
 @pytest.fixture(scope="module")
 def _single_device_records():
-    from fwav_tpu.models.encode import compress_audio_arrays
+    from fwav.models.encode import compress_audio_arrays
 
     sig, sr = _noise_fixture()
     out = {}
@@ -196,7 +196,7 @@ def test_compress_audio_sharded_bit_equal_coarse(dp, tp, _single_device_records)
     BIT-EQUAL records to the single-device encoder on a tie-free fixture:
     only the selection leaves the device and s/o/err come from the shared
     host refit (VERDICT r1 item 4)."""
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, single = _single_device_records
     rec_1, dom_1, n1, rs1, *_ = single["coarse"]
@@ -211,7 +211,7 @@ def test_compress_audio_sharded_bit_equal_coarse(dp, tp, _single_device_records)
 
 
 def test_compress_audio_sharded_bit_equal_exact(_single_device_records):
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, single = _single_device_records
     rec_1, dom_1, n1, rs1, *_ = single["exact"]
@@ -225,8 +225,8 @@ def test_compress_audio_sharded_bit_equal_exact(_single_device_records):
 
 def test_compress_audio_sharded_decodes(_single_device_records):
     """End to end: the sharded encode's records decode identically."""
-    from fwav_tpu import compute_snr, decompress_audio
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav import compute_snr, decompress_audio
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, single = _single_device_records
     rec_1, dom_1, n1, rs1, *_ = single["coarse"]
@@ -242,9 +242,9 @@ def test_compress_audio_sharded_decodes(_single_device_records):
 def test_sharded_damped_decode_matches_single_device(_single_device_records):
     """The damped (device while_loop) decode range-sharded over the dp axis
     must reproduce the single-device decode (VERDICT r1 item 7)."""
-    from fwav_tpu import decompress_audio
+    from fwav import decompress_audio
 
-    from fwav_tpu import compute_snr
+    from fwav import compute_snr
 
     sig, sr, single = _single_device_records
     rec, dom, n, rs, *_ = single["coarse"]
@@ -277,7 +277,7 @@ def test_init_distributed_single_process():
     code = (
         "import jax;"
         "jax.config.update('jax_platforms', 'cpu');"
-        "from fwav_tpu.parallel.mesh import init_distributed;"
+        "from fwav.parallel.mesh import init_distributed;"
         "mesh = init_distributed('localhost:12321', 1, 0);"
         "assert mesh.devices.size >= 1, mesh;"
         "import jax.numpy as jnp;"
@@ -298,10 +298,10 @@ def test_damped_objective_tp_composition(search, _single_device_records):
     MIPS-free scan, merged winners) and coarse (range-split multi-lobe
     refine — round-4 unification; previously refused): records bit-equal to
     single device via the idx-only protocol + host refit."""
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, _ = _single_device_records
-    from fwav_tpu.models.encode import compress_audio_arrays
+    from fwav.models.encode import compress_audio_arrays
 
     rec_1, dom_1, n1, rs1, *_ = compress_audio_arrays(
         sig, sr, 2, search=search, objective="damped"
@@ -324,8 +324,8 @@ def test_compress_audio_sharded_bit_equal_topk(dp, tp, _single_device_records):
     keyed on the argmin position — so the sharded selection replicates the
     single-device slot-order tie-break bit-for-bit on a tie-free fixture
     (fractal.py:353-381,535-552 parallelized)."""
-    from fwav_tpu.models.encode import compress_audio_arrays
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.models.encode import compress_audio_arrays
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, _ = _single_device_records
     rec_1, dom_1, n1, rs1, *_ = compress_audio_arrays(
@@ -345,8 +345,8 @@ def test_mesh_path_ignores_h2d_chunks(_single_device_records):
     """h2d_chunks is a single-device transport knob: the sharded encode
     must ignore it (its replicated in_specs own the transfer) and stay
     bit-equal to the mesh encode without the knob."""
-    from fwav_tpu.config import EncoderConfig
-    from fwav_tpu.parallel.shard import compress_audio_sharded
+    from fwav.config import EncoderConfig
+    from fwav.parallel.shard import compress_audio_sharded
 
     sig, sr, single = _single_device_records
     mesh = make_mesh(4, dp=2, tp=2)

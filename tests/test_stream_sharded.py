@@ -10,8 +10,8 @@ Runs on the virtual 8-device CPU mesh (tests/conftest.py).
 import numpy as np
 import pytest
 
-from fwav_tpu.models.stream import compress_audio_streaming
-from fwav_tpu.parallel.mesh import make_mesh
+from fwav.models.stream import compress_audio_streaming
+from fwav.parallel.mesh import make_mesh
 
 
 def _noise_sig(seconds=1.5, sr=8000, seed=3):
@@ -71,10 +71,10 @@ def test_tie_heavy_content_flips_are_exact_ties_and_decode_equal():
     (1) mesh configs sharing padded buckets stay mutually bit-equal,
     (2) every flipped selection is an exact f64 selection-score tie,
     (3) decode output matches within 1 PCM LSB."""
-    from fwav_tpu import decompress_audio
-    from fwav_tpu.models.stream import domain_block_iter
-    from fwav_tpu.ops.domains import bank_rows_host
-    from fwav_tpu.ops.vad import voiced_detection
+    from fwav import decompress_audio
+    from fwav.models.stream import domain_block_iter
+    from fwav.ops.domains import bank_rows_host
+    from fwav.ops.vad import voiced_detection
 
     rng = np.random.default_rng(7)
     n = 6188
@@ -133,10 +133,10 @@ def test_tie_heavy_content_flips_are_exact_ties_and_decode_equal():
 
 def test_streaming_file_level_with_devices(tmp_path, monkeypatch):
     # process_file_compress composes streaming with --devices/--tp
-    import fwav_tpu.models.codec as codec
-    from fwav_tpu import compute_snr
-    from fwav_tpu.io.wav import read_wav_mono, write_wav
-    from fwav_tpu.models.codec import (
+    import fwav.models.codec as codec
+    from fwav import compute_snr
+    from fwav.io.wav import read_wav_mono, write_wav
+    from fwav.models.codec import (
         process_file_compress,
         process_file_decompress,
     )

@@ -4,8 +4,8 @@ numpy golden (sliding_window_view formulation)."""
 import jax.numpy as jnp
 import numpy as np
 
-from fwav_tpu.ops.domains import box_sums, build_bank_jax, build_domains_np, n_domains_for
-from fwav_tpu.ops.vad import voiced_detection, voiced_mask_jax
+from fwav.ops.domains import box_sums, build_bank_jax, build_domains_np, n_domains_for
+from fwav.ops.vad import voiced_detection, voiced_mask_jax
 
 
 def _ref_voiced_detection(signal, frame_size=64, energy_threshold=1e-4,

@@ -5,7 +5,7 @@ import wave
 
 import numpy as np
 
-from fwav_tpu.io.wav import read_wav_mono, write_wav
+from fwav.io.wav import read_wav_mono, write_wav
 
 
 def _write_raw(path, raw, nchan, sampwidth, framerate):
